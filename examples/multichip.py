@@ -1,13 +1,13 @@
 """Multi-chip walkthrough: every analysis path over a device mesh.
 
-The reference is single-threaded end-to-end (README.md:83); the TPU-native
-framework scales two ways on a ``jax.sharding.Mesh``:
+The reference is single-threaded end-to-end (README.md:83); this framework
+scales two ways on a ``jax.sharding.Mesh``:
 
 - a **files axis** (data parallel): batch extraction, the correlation
   search, the resident database, batched segmentation, and the
   self-similarity gram shard independent work over devices;
 - a **time axis** (sequence/context parallel): ONE long file's extraction,
-  correlation trace, or novelty curve splits into per-chip slabs with a
+  correlation trace, or novelty curve splits into per-device slabs with a
   halo so each shard computes locally — no collectives in the hot path.
 
 No multi-chip hardware is needed to try it — run on a virtual CPU mesh:
@@ -15,8 +15,8 @@ No multi-chip hardware is needed to try it — run on a virtual CPU mesh:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip.py
 
-On a real TPU pod slice, drop the env vars (the mesh spans the attached
-chips).  The CLI gets the same behavior from ``STRUGATZKI_MESH=1``
+On a multi-GPU host, drop the env vars (the mesh spans the attached
+GPUs).  The CLI gets the same behavior from ``STRUGATZKI_MESH=1``
 (see README; ``0``/``false``/``off``/unset keep the single-device
 programs and their compile cache).
 """

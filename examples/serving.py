@@ -1,11 +1,11 @@
 """Resident-database serving walkthrough.
 
 The reference re-reads every feature file from disk for every search; the
-TPU-native serving model stages the whole database in HBM once and answers
-queries in single dispatches.  This example builds a tiny in-memory
+serving model here stages the whole database in device memory once and
+answers queries in single dispatches.  This example builds a tiny in-memory
 database and exercises the full serving surface:
 
-    python examples/serving.py            # CPU by default off-TPU
+    python examples/serving.py
 """
 
 import os
@@ -37,7 +37,7 @@ def main() -> None:
 
     # one-time staging: normalize + group-shift fused on device
     # (cache_spectra=True additionally keeps every file's forward FFTs
-    # resident — ~2.4x lower query device time for ~1.8x the HBM)
+    # resident for ~1.8x the memory; its query speed-up: not measured)
     db = FeatureDatabase(files, norm=None)
     print(f"staged {db.num_files} files on device")
 
@@ -72,8 +72,9 @@ def main() -> None:
     # 4. compact serving mode: f32 features + PLANAR bf16 spectra cache
     #    (~10.8 GiB at 10k files — fits one chip with every forward FFT
     #    resident); the automatic 4x k-inflation + exact DEVICE re-rank
-    #    (over the resident f32 features) keeps returned values exact on
-    #    all three query kinds, punch included.  For raw capacity beyond
+    #    (over the resident f32 features) makes the RERANK_LIMIT best
+    #    returned hits exact on all three query kinds, punch included
+    #    (``exact`` marks them).  For raw capacity beyond
     #    HBM, storage_dtype=jnp.bfloat16 halves the features instead
     #    (re-rank then falls back to the host f64 mirror).
     dbc = FeatureDatabase(files, norm=None, cache_spectra="bf16")

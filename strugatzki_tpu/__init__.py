@@ -1,11 +1,11 @@
-"""strugatzki_tpu — TPU-native audio feature extraction and similarity analysis.
+"""strugatzki_tpu — accelerator audio feature extraction and similarity analysis.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 Strugatzki reference (phdoerfler/Strugatzki): MFCC + perceptual-loudness
 feature extraction, database correlation matching (punch-in/out search with
 loudness-boost estimation), novelty segmentation, self-/cross-similarity
 matrices and feature-database statistics — with the DSP front-end and all
-sliding-window correlation math implemented as batched TPU ops instead of an
+sliding-window correlation math implemented as batched device ops instead of an
 scsynth subprocess and single-threaded scalar loops.
 
 On-disk surface (float32 AIFC feature files, XML meta sidecars,

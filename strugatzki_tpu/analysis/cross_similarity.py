@@ -1,6 +1,6 @@
 """Sliding cross-similarity vector.
 
-TPU-native re-implementation of impl/CrossSimilarityImpl.scala: the shorter
+JAX re-implementation of impl/CrossSimilarityImpl.scala: the shorter
 feature span becomes an in-memory template (:92-114), slid across the longer
 span one frame per step with the same sim/boost formulas as the correlation
 matcher (:142-154); the per-step similarity is written as a 1-channel float

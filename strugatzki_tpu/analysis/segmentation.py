@@ -1,6 +1,6 @@
 """Novelty-based segmentation processor.
 
-TPU-native re-implementation of impl/FeatureSegmentationImpl.scala: the
+JAX re-implementation of impl/FeatureSegmentationImpl.scala: the
 sliding half-window correlation loop (:107-133) becomes one dense novelty
 curve on device (kernels/corr.py::novelty_trace), and the break selection —
 bounded sorted set, minSpacing collapse, duplicate-sim dedup — is replayed on
@@ -67,7 +67,7 @@ def _novelty_prep(features: np.ndarray, norm, step_size: int,
     """Shared span/window/pad prep of the novelty input: returns
     ``(xs, num_windows, af_start, half_win)`` or ``None`` for an empty
     span.  ``pad_to`` is bucketed so sweeps over many lengths reuse a
-    handful of jit keys (remote compiles cost minutes, CLAUDE.md)."""
+    handful of jit keys (each fresh key is a compile)."""
     from .correlation import _bucket
     num_frames = features.shape[1]
     af_start = max(0, full_to_feat(cfg.span.start, step_size)) \

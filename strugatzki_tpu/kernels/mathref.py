@@ -4,7 +4,7 @@ These are numerically faithful re-implementations of
 ``impl/MathUtil.scala`` (float32 data, float64 accumulation, result cast to
 float32) in vectorized NumPy.  They serve as
 
-1. the parity anchor the TPU kernels are tested against, and
+1. the parity anchor the device kernels are tested against, and
 2. the host fallback for tiny inputs where device dispatch isn't worth it.
 
 All matrices use the reference layout ``[channels, frames]``.

@@ -1,38 +1,27 @@
 """Standing planted-match canary for the batched serving kernels.
 
-Round 4 found a TPU-backend fault: queries-axis-vmapped batched trace
-programs return silently DEFLATED sims (planted exact matches came back
-0.88–0.99, bit-identical across kernel structures) whenever a fused step
-holds a power-of-two ≥ 2048 trace lanes (docs/ROUND4_NOTES.md; CLAUDE.md).
-The mitigation chunks the files axis to the hardware-validated ≤ 1024
-lanes per fused step (:func:`.database._chunked_files_vmap`) — but the
-fault is invisible on CPU, and a backend/XLA update could silently
-re-introduce value deflation inside the validated regime without any test
-noticing.  This module is the standing detector: it plants exact matches
+A batched trace program can return silently deflated sims on a backend
+whose compiler mishandles one of its shapes (the files axis is chunked to
+a validated lane budget per fused step for that reason,
+:func:`.database._chunked_files_vmap`).  Such a fault is invisible on
+CPU, so this module is the standing detector: it plants exact matches
 (the reference's own ``correlate(a, a) == 1`` guarantee,
 impl/MathUtil.scala:195) and pushes them through the PRODUCTION batched
-query and punch kernels at a downscaled shape that sits exactly at the
-validated per-step lane budget, asserting every planted sim returns 1.0.
-
-Run it every hardware session::
+query and punch kernels, asserting every planted sim returns 1.0.  The
+GPU run of ``chip_smoke.py`` runs it at the 10k-file serving size; this
+canary on the card decides whether the chunking guard is still needed.
 
     python tools/batch_canary.py          # exits non-zero on FAIL
 
-``bench.py`` also runs it after printing the driver's JSON line (env
-``BENCH_CANARY=0`` skips), so every captured BENCH record carries a fresh
-canary verdict in its stderr tail.
-
-The shapes are chosen so both batched kernels take the CHUNKED path at
+The default shapes make both batched kernels take the CHUNKED path at
 precisely the validated budget boundary:
 
 * query: Q=8 templates → ``bc = 1024/8 = 128`` files per step over
   B=256 files (2 chunks), 8·128 = 1024 trace lanes per fused step;
 * punch: 2·Q=16 lanes/file → ``bc = 64`` (4 chunks), 16·64 = 1024 lanes.
 
-A deflation recurrence shows up as ``|sim − 1| ≳ 1e-2`` (the observed
-fault scale); FFT-formulation rounding is ≤ 3e-8 on hardware
-(docs/BENCHMARKS.md), so the 1e-4 verdict threshold separates the two by
-two orders of magnitude in each direction.
+A deflation shows up as ``|sim − 1| ≳ 1e-2``; FFT-formulation rounding is
+orders of magnitude smaller, so the 1e-4 verdict threshold separates them.
 """
 
 from __future__ import annotations
@@ -41,10 +30,11 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["run_batch_canary", "format_report"]
+__all__ = ["run_batch_canary", "planted_layout", "check_planted",
+           "format_report"]
 
-#: FAIL when any planted sim deviates from 1.0 by more than this.  The
-#: fault deflates by ≥ 1e-2; kernel rounding is ≤ 3e-8 — see module doc.
+#: FAIL when any planted sim deviates from 1.0 by more than this.  A
+#: deflation fault is ≥ 1e-2; kernel rounding is far below — see module doc.
 TOLERANCE = 1e-4
 
 #: Tolerance for the RAW device sims of the reduced (compact) spectra
@@ -54,25 +44,24 @@ TOLERANCE = 1e-4
 REDUCED_TOLERANCE = 4e-3
 
 
-def run_batch_canary(n_files: int = 256, file_frames: int = 1200,
-                     num_queries: int = 8, l_in: int = 96, l_out: int = 48,
-                     seed: int = 0, cache_spectra=False,
-                     mesh=None) -> dict:
-    """Plant exact matches, run the production batched kernels, report.
+def planted_layout(n_files: int = 256, file_frames: int = 1200,
+                   num_queries: int = 8, l_in: int = 96, l_out: int = 48,
+                   seed: int = 0) -> dict:
+    """Synthetic features with planted query templates and punch pairs.
 
-    Returns a dict: ``pass`` (bool), ``worst`` (max ``|sim − 1|`` over
-    every planted hit across all four kernel families), per-family worsts,
-    and ``frames_ok`` (every planted hit surfaced at its planted offset).
-    Pure function of ``seed`` — no files touched, ~40 MB of synthetic
-    features staged.
-    """
+    Returns a dict: ``entries`` (``(name, [14, file_frames])`` pairs),
+    ``tmpls``, ``pairs`` (``(in, out, min_punch, max_punch)``),
+    ``planted`` (``(file, frame)`` per query) and ``d_punch``.  Pure
+    function of ``seed``."""
     from ..analysis.correlation import InputTemplate
-    from .database import FeatureDatabase
 
     rng = np.random.default_rng(seed)
     base = rng.uniform(0.3, 0.7, size=(n_files, 14, 1)).astype(np.float32)
-    feats = np.abs(base + 0.1 * rng.standard_normal(
-        (n_files, 14, file_frames)).astype(np.float32))
+    # in place, float32 throughout: the 10k-file size is ~6 GB
+    feats = rng.standard_normal((n_files, 14, file_frames), dtype=np.float32)
+    feats *= np.float32(0.1)
+    feats += base
+    np.abs(feats, out=feats)
     entries = [(f"f{i}.aif", feats[i]) for i in range(n_files)]
 
     # plant query templates and punch pairs in distinct, non-adjacent files
@@ -95,9 +84,21 @@ def run_batch_canary(n_files: int = 256, file_frames: int = 1200,
                                     .copy()),
                       min_punch, max_punch))
         planted.append((f, o_in + q))
+    return {"entries": entries, "tmpls": tmpls, "pairs": pairs,
+            "planted": planted, "d_punch": d_punch}
 
-    db = FeatureDatabase(entries, norm=None, cache_spectra=cache_spectra,
-                         mesh=mesh)
+
+def check_planted(db, layout: dict) -> dict:
+    """Run the production batched and Q=1 kernels of ``db`` (staged from
+    ``layout["entries"]``) on the planted templates, and report.
+
+    Returns a dict: ``pass`` (bool), ``worst`` (max ``|sim − 1|`` over
+    every planted hit across all four kernel families), per-family worsts
+    and tolerances, and ``frames_ok`` (every planted hit surfaced at its
+    planted offset)."""
+    tmpls, pairs = layout["tmpls"], layout["pairs"]
+    planted, d_punch = layout["planted"], layout["d_punch"]
+    min_punch, max_punch = pairs[0][2], pairs[0][3]
     report = {"families": {}, "tols": {}, "frames_ok": True}
 
     def record(name: str, devs, frames_ok: bool,
@@ -108,7 +109,7 @@ def run_batch_canary(n_files: int = 256, file_frames: int = 1200,
 
     def run_families(suffix: str = "", tol: float = TOLERANCE,
                      **kw) -> None:
-        # -- batched query (the invalidated round-3 path, now chunked) -----
+        # -- batched query -------------------------------------------------
         qb = db.query_batch(tmpls, k=2, **kw)
         devs, f_ok = [], True
         for q, (f, off) in enumerate(planted):
@@ -153,6 +154,22 @@ def run_batch_canary(n_files: int = 256, file_frames: int = 1200,
         report["families"][k] <= report["tols"][k]
         for k in report["families"]))
     return report
+
+
+def run_batch_canary(n_files: int = 256, file_frames: int = 1200,
+                     num_queries: int = 8, l_in: int = 96, l_out: int = 48,
+                     seed: int = 0, cache_spectra=False,
+                     mesh=None) -> dict:
+    """Plant exact matches, stage them, run the production batched kernels
+    and report (:func:`check_planted`).  ~40 MB of synthetic features at
+    the default shapes; no files touched."""
+    from .database import FeatureDatabase
+
+    layout = planted_layout(n_files, file_frames, num_queries, l_in, l_out,
+                            seed)
+    db = FeatureDatabase(layout["entries"], norm=None,
+                         cache_spectra=cache_spectra, mesh=mesh)
+    return check_planted(db, layout)
 
 
 def format_report(report: dict) -> str:

@@ -6,12 +6,12 @@ Single-host multi-chip sharding is implemented and dry-run tested
 process-count agnostic because every sharded array is placed with
 ``jax.device_put(…, NamedSharding(mesh, P("files")))`` and queries are pure
 SPMD with replicated templates (all cross-chip traffic is the tiny top-k
-gather, riding ICI within a slice and DCN across hosts).
+gather, riding NVLink within a host and the network across hosts).
 
 Smoke-tested with two local processes joining a ``jax.distributed`` group
 over localhost (4 virtual CPU devices each → an 8-device global mesh,
-sharded query answered SPMD): tests/test_multihost.py.  Real DCN transport
-still needs a multi-host pod to exercise.
+sharded query answered SPMD): tests/test_multihost.py.  A real multi-host
+transport has not been exercised.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ def initialize(coordinator_address: Optional[str] = None,
     """Join the JAX process group (no-op when single-process).
 
     Arguments default to the standard ``JAX_COORDINATOR_ADDRESS`` /
-    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment variables; on
-    Cloud TPU pods, calling with no arguments lets JAX auto-detect.
+    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment variables; with
+    neither arguments nor variables the call is a no-op.
 
     Extra keyword arguments pass through to
     ``jax.distributed.initialize`` — most usefully
@@ -46,13 +46,7 @@ def initialize(coordinator_address: Optional[str] = None,
                 or process_id is not None
                 or "JAX_COORDINATOR_ADDRESS" in os.environ
                 or "JAX_NUM_PROCESSES" in os.environ)
-    # pod auto-detect: the runtime sets these itself — the user sets
-    # nothing, so "no args, no env" must still initialize there (passing
-    # every argument as None lets jax.distributed discover the topology)
-    pod_auto = any(v in os.environ for v in (
-        "TPU_WORKER_HOSTNAMES", "CLOUD_TPU_TASK_ID",
-        "MEGASCALE_COORDINATOR_ADDRESS"))
-    if not explicit and not pod_auto:
+    if not explicit:
         return                      # plain single-process run
     if num_processes is None:
         env_np = os.environ.get("JAX_NUM_PROCESSES")

@@ -17,7 +17,7 @@ FeatureCorrelationImpl.scala:28, Strugatzki.scala:95-99):
 
 Each processor body runs on its own dedicated thread, matching the reference's
 threading model (reference README.md:83: one dedicated thread per process) —
-on the TPU rebuild the heavy lifting inside a body is a handful of big jitted
+in this JAX rebuild the heavy lifting inside a body is a handful of big jitted
 XLA launches, so a plain thread is the right amount of runtime.
 """
 

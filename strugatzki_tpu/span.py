@@ -1,6 +1,6 @@
 """Time spans in sample frames.
 
-TPU-native re-implementation of the subset of ``de.sciss.span.Span`` that the
+JAX re-implementation of the subset of ``de.sciss.span.Span`` that the
 reference framework uses (see reference impl/SpanUtil.scala:21-43 and the
 ``Span.NonVoid`` usages across the six analysis modules).
 

@@ -185,26 +185,6 @@ def test_wave64_zero_size_chunk_raises(tmp_path):
         af.read_spec(p)
 
 
-def test_staged_put_row_larger_than_chunk():
-    """One leading-axis row bigger than STAGE_CHUNK_BYTES must go through
-    the flat split, never a >chunk per-row put (advisor finding, round 2)."""
-    from unittest import mock
-    from strugatzki_tpu.util import transfer
-    arr = np.zeros((2, 1 << 20), dtype=np.float32)  # 4 MB rows
-    sizes = []
-    real_put = transfer.jax.device_put
-
-    def spy(x, *a, **k):
-        sizes.append(x.nbytes)
-        return real_put(x, *a, **k)
-
-    with mock.patch.object(transfer, "STAGE_CHUNK_BYTES", 1 << 20), \
-            mock.patch.object(transfer.jax, "device_put", side_effect=spy):
-        out = transfer.staged_put(arr)
-    assert out.shape == arr.shape
-    assert sizes and max(sizes) <= (1 << 20)
-
-
 def test_ircam_int32_roundtrip(tmp_path):
     data = _sig(2, 300, seed=4)
     p = tmp_path / "x.irc"

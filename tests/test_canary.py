@@ -1,5 +1,5 @@
-"""The standing planted-match canary for the batched kernels (round-4
-TPU-backend deflation fault detector — strugatzki_tpu/parallel/canary.py).
+"""The standing planted-match canary for the batched kernels (detector
+of silently deflated batched sims — strugatzki_tpu/parallel/canary.py).
 
 CPU is exact at every shape, so the canary must PASS here with rounding-
 level deviations; a simulated deflation must flip it to FAIL.  The shape

@@ -403,11 +403,11 @@ def test_rerank_device_flag_validation(db_entries):
 def test_rerank_gather_is_scan_stacked():
     """Structure pin: the device re-rank's window gather must stay STACKED
     THROUGH lax.scan.  A jax.vmap(dynamic_slice) gather fused into the
-    consuming reductions returns silently wrong sims on the TPU backend
-    from 128 windows up (round-5 backend regression; the fault is
-    invisible on CPU — tools/rerank_isolate.py, CLAUDE.md).  This pins
-    the jaxpr so a refactor back to the vmap form fails loudly here
-    instead of silently on hardware."""
+    consuming reductions returned silently wrong sims on the former
+    accelerator's compiler from 128 windows up, a fault invisible on CPU
+    (docs/PARITY.md); the device re-score checks of chip_smoke.py decide
+    whether the GPU still needs the guard.  This pins the jaxpr so a
+    refactor back to the vmap form is a decision, not an accident."""
     import jax
     import jax.numpy as jnp
 

@@ -1,4 +1,4 @@
-"""Serving-layer observer protocol (VERDICT r3 item 5): FeatureDatabase
+"""Serving-layer observer protocol: FeatureDatabase
 staging, incremental adds, restages and save/load report progress and honor
 cooperative abort — the same contract the six analysis factories follow
 (the reference's checkAborted/progress pattern,

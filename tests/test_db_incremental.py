@@ -185,6 +185,48 @@ def test_rerank_limit_preserves_top_matches(monkeypatch):
     assert got == want
 
 
+def _run_query(db, kind, ents):
+    """One result of the named query path over ``ents``' template(s)."""
+    t_in = _tmpl(ents, 5, start=10, L=40)
+    t_out = _tmpl(ents, 5, start=90, L=30)
+    if kind == "query":
+        return db.query(t_in, k=2)
+    if kind == "query_batch":
+        return db.query_batch([t_in, t_out], k=2)[0]
+    if kind == "query_punch":
+        return db.query_punch(t_in, t_out, min_punch=60, max_punch=100, k=2)
+    return db.query_punch_batch([(t_in, t_out, 60, 100)], k=2)[0]
+
+
+@pytest.mark.parametrize("kind", ["query", "query_batch", "query_punch",
+                                  "query_punch_batch"])
+def test_exact_mask_marks_rescored_hits(monkeypatch, kind):
+    """``exact`` marks the hits the capped re-rank re-scored: they carry
+    the same sims as an uncapped re-rank, the rest keep raw device sims;
+    the mask follows the re-sort and the trim to ``k`` columns."""
+    ents = _entries(40, 40, C=14)
+    db = FeatureDatabase(ents, norm=None, cache_spectra="bf16")
+    assert _run_query(FeatureDatabase(ents, norm=None), kind,
+                      ents).exact is None        # f32 store: no re-rank
+    monkeypatch.setattr(FeatureDatabase, "RERANK_LIMIT", 20)
+    capped = _run_query(db, kind, ents)
+    monkeypatch.setattr(FeatureDatabase, "RERANK_LIMIT", 10**9)
+    full = _run_query(db, kind, ents)
+    live = np.isfinite(capped.sims)
+    assert capped.exact.shape == capped.sims.shape == (40, 2)
+    assert 0 < (capped.exact & live).sum() <= 20
+    assert (~capped.exact & live).any()
+    assert full.exact[np.isfinite(full.sims)].all()
+    lens = getattr(capped, "punch_lens", np.zeros_like(capped.frames))
+    f_lens = getattr(full, "punch_lens", np.zeros_like(full.frames))
+    for i, j in np.argwhere(capped.exact & live):
+        same = (full.frames[i] == capped.frames[i, j]) & \
+            (f_lens[i] == lens[i, j])
+        assert same.any()
+        np.testing.assert_allclose(full.sims[i][same][0], capped.sims[i, j],
+                                   atol=1e-6)
+
+
 def test_concurrent_queries_thread_safe():
     """Serving reads are side-effect-free: many threads querying one
     resident database concurrently get identical results."""

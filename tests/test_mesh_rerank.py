@@ -1,4 +1,4 @@
-"""Device exact re-rank on a mesh-sharded database (VERDICT r4 item 4).
+"""Device exact re-rank on a mesh-sharded database.
 
 Round 4's device re-rank was gated to single-device f32 databases; under
 a mesh — exactly the configuration whose capacity story needs it — every

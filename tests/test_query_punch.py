@@ -414,8 +414,8 @@ def test_query_punch_batch_fuzz_seeds():
 
 def test_batched_kernels_chunked_files_path(monkeypatch):
     """The validated-batch files chunking in the batched kernels
-    (``_chunked_files_vmap`` — the mitigation for the TPU-backend fault
-    documented in docs/PARITY.md) must be result-identical to the plain
+    (``_chunked_files_vmap`` — the guard against the batched-kernel
+    fault documented in docs/PARITY.md) must be result-identical to the plain
     files vmap, including a ragged zero-padded tail chunk, on both the f32
     and the compact (planar bf16 spectra) storage modes."""
     from strugatzki_tpu.parallel import database as D

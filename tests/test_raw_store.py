@@ -1,4 +1,4 @@
-"""Memmap-backed raw feature store (VERDICT r3 item 6): staging from a
+"""Memmap-backed raw feature store: staging from a
 one-shot generator keeps host RSS O(one file); every serving surface —
 queries, exact re-ranks (host + device), incremental updates, restage,
 save/load — works unchanged on the disk-backed store."""

@@ -1,14 +1,13 @@
 """Mesh-sharded self-similarity gram + batched/sharded segmentation
-novelty: the last two reference compute paths to gain a multi-chip story
-(VERDICT r3 item 3).
+novelty over a files mesh.
 
-Both the single-device default and the mesh path run the round-4 fast
+Both the single-device default and the mesh path run the fast
 engine (the mesh variant SPMD: replicated window stacks, pair index
 sharded over ``files``).  Single-device and mesh are still DIFFERENT
 compiled programs, and XLA contracts their mul→add/sub chains into FMAs
 independently, so cross-program sims agree within the plan-invariance
-budget (≤2e-5; ≤2e-7 observed) but not bitwise — a 60-config soak found
-1–32-ulp scatter at some shapes (docs/ROUND4_NOTES.md).  Bitwise claims
+budget (≤2e-5) but not bitwise — 1–32-ulp scatter at some shapes.
+Bitwise claims
 below are reserved for same-program comparisons: the device colorization
 vs the host quantization of the SAME sharded sims, and the streaming PNG
 vs the matrix path on the SAME engine."""

@@ -1,5 +1,5 @@
-"""Planted-match canary for the batched serving kernels — run this every
-hardware session (and after any jax/XLA/backend update).
+"""Planted-match canary for the batched serving kernels — run this on
+the GPU after any jax/XLA/driver update.
 
     python tools/batch_canary.py [--spectra] [--compact] [--mesh N]
 
@@ -7,9 +7,9 @@ hardware session (and after any jax/XLA/backend update).
 production 10k serving mode (planar bf16 spectra + window-sum table),
 which also checks the raw sums-trace sims with the re-rank disabled.
 
-Exits non-zero on FAIL.  Detects a recurrence of the round-4 TPU-backend
-deflation fault (silently wrong sims in queries-axis-vmapped batched trace
-programs — docs/ROUND4_NOTES.md) by asserting planted exact matches return
+Exits non-zero on FAIL.  Detects silently deflated sims in the
+queries-axis-vmapped batched trace programs (a compiler fault seen on the
+former accelerator, docs/PARITY.md) by asserting planted exact matches return
 sim 1.0 through the PRODUCTION chunked kernels at the validated per-step
 lane budget.  See strugatzki_tpu/parallel/canary.py for the shape rationale.
 """

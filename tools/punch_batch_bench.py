@@ -1,5 +1,5 @@
-"""Measure query_punch_batch vs sequential query_punch (VERDICT r3
-item 4: done = >= 2x at 512 files x 8 punch pairs).
+"""Measure query_punch_batch vs sequential query_punch (512 files x 8
+punch pairs by default).
 
 The batch kernel computes each file's forward spectra once for all pairs
 in a bucket; sequential punch queries recompute them per query.

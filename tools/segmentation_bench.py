@@ -3,7 +3,7 @@
 Measures the missing BASELINE benchmark config: novelty segmentation of a
 5-minute file with ``corrLen`` 44100 (half-window 86 feature frames at the
 default 1024/512 resolution) and 20 breaks, on whatever backend is active
-(the real TPU by default; ``STRUGATZKI_PLATFORM=cpu`` for a CPU rehearsal).
+(the GPU by default; ``STRUGATZKI_PLATFORM=cpu`` for a CPU rehearsal).
 
 Reference equivalent: FeatureSegmentationImpl.scala's sliding half-window
 loop — O(numWindows x winLen x channels) sequential host work, plus disk

@@ -3,11 +3,10 @@
 3-minute piece, corrLen 44100 (half-window 86), decimation 4 → a 3833×3833
 matrix (15 M cells).  Measures, on the active backend:
 
-  1. float32 matrix fetch + host colorize (the round-2 pipeline: 60 MB of
-     incompressible f32 sims cross the link),
+  1. float32 matrix fetch + host colorize (60 MB of f32 sims cross to
+     the host),
   2. the fused device colorization (colorWarp == 1 fast path): uint16
-     palette indices / uint8 gray cross instead — 2-4× fewer bytes, and
-     smooth integer rasters the relay's compressor can actually shrink,
+     palette indices / uint8 gray cross instead — 2-4× fewer bytes,
   3. full PNG write via each path.
 
 Pixels are asserted identical between the two paths before timing.
